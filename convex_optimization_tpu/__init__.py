@@ -1,4 +1,4 @@
-"""convex_optimization_tpu — a TPU-native sparse-regression framework.
+"""convex_optimization_tpu — a sparse-regression framework in JAX.
 
 A brand-new JAX/XLA/Pallas/pjit framework with the capabilities of the
 reference repo ``kingold5/convex_optimization`` (see /root/repo/SURVEY.md for
@@ -19,7 +19,8 @@ Layering (SURVEY.md section 1.2):
     api        solve() / Problem / Result, CLI
     solvers/   FISTA / ISTA / block-CD sweeps / lambda-path / screening
     parallel/  mesh, column-block sharding, residual-consensus collectives
-    ops/       Pallas fused block-sweep kernel + pure-jnp oracle
+    ops/       fused block-sweep (CUDA kernel / plain XLA), route choice,
+               transposed-layout products, pure-jnp oracle
     core/      problems, data generation, duality-gap convergence monitor
     models/    penalty families (prox operators, dual norms, screening rules)
 """

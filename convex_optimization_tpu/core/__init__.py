@@ -1,5 +1,5 @@
 """Core layer (L1): problem container, synthetic data generation, and the
-certified duality-gap convergence monitor.  Pure jnp — runs on CPU and TPU.
+certified duality-gap convergence monitor.  Pure jnp — runs on CPU and GPU.
 """
 
 from convex_optimization_tpu.core.problem import Problem

@@ -14,6 +14,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from convex_optimization_tpu.models.penalties import Penalty, l1
 
@@ -27,16 +28,15 @@ from convex_optimization_tpu.models.penalties import Penalty, l1
 class Problem:
     """A dense composite problem instance.
 
-    A: (m, n) design matrix (float32 on TPU; float64 allowed on CPU oracles)
+    A: (m, n) design matrix (float32 on the device; float64 for oracles)
     b: (m,) observations
     penalty: nonsmooth part g (lasso / nonneg / group)
     lam2: ridge coefficient of the smooth part (elastic net when > 0)
     shape_override: static (m, n) override for AUDIT-PLACEHOLDER problems —
-        kernel-routed compact solves (solvers/working_set.py) must never
-        trace ``A``, so they carry a tiny NaN stand-in for it; the
-        override keeps ``.m``/``.n`` correct without the placeholder
-        costing a full-size (m, k) HBM buffer (a real OOM at the 10k×100k
-        headline, r5 battery first run).  A program that does trace the
+        compact solves on the transposed layout (solvers/working_set.py)
+        must never trace ``A``, so they carry a tiny NaN stand-in for it;
+        the override keeps ``.m``/``.n`` correct without the placeholder
+        costing a full-size (m, k) device buffer.  A program that does trace the
         stand-in fails loudly: shape mismatch at trace time, NaN results
         if shapes happen to broadcast.
     """
@@ -61,11 +61,11 @@ class Problem:
 
     def residual(self, x: jax.Array) -> jax.Array:
         """r = A x - b (note: the dual machinery uses rho = -r)."""
-        return self.A @ x - self.b
+        return jnp.dot(self.A, x, precision=lax.Precision.HIGHEST) - self.b
 
     def grad_smooth(self, x: jax.Array, r: jax.Array) -> jax.Array:
         """Gradient of the smooth part at x given r = Ax - b."""
-        g = self.A.T @ r
+        g = jnp.dot(self.A.T, r, precision=lax.Precision.HIGHEST)
         if not _is_zero(self.lam2):
             g = g + self.lam2 * x
         return g

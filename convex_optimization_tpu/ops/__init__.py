@@ -1,6 +1,8 @@
-"""Compute ops (L2 kernels layer): jnp reference implementations and the
-Pallas fused block-sweep kernel.  The jnp path is kept forever as the parity
-oracle and the non-TPU fallback (SURVEY.md section 7.2 step 4).
+"""Compute ops (L2 kernels layer): the fused block sweep (route.py picks
+the Hopper CUDA kernel or the plain XLA sweep), products over the
+transposed layout, power iteration, and the pure-jnp oracle
+(bcd_sweep_ref.py), kept as the parity reference (SURVEY.md section 7.2
+step 4).
 """
 
 from convex_optimization_tpu.ops.power_iter import (

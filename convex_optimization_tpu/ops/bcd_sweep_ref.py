@@ -10,7 +10,7 @@ the reference's hot loop (SURVEY.md section 3.2) as a single ``lax.scan``:
 Unlike the reference (a Python loop dispatching per-block kernels with
 host-side step logic), the whole sweep is one jitted program: no host
 round-trips, static shapes, sequential-in-j semantics preserved.  This file
-is the correctness oracle for the fused Pallas kernel in bcd_sweep_pallas.py.
+is the correctness oracle for the fused sweep in bcd_sweep.py.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ def bcd_sweep_ref(
         col0 = j * B
         Aj = lax.dynamic_slice_in_dim(A, col0, B, axis=1)
         xj = lax.dynamic_slice(x, (col0,), (B,))
-        g = Aj.T @ r + lam2 * xj
+        g = jnp.dot(Aj.T, r, precision=lax.Precision.HIGHEST) + lam2 * xj
         t = step_scale / (lax.dynamic_index_in_dim(block_L, j, keepdims=False) + lam2)
         xj_new = penalty.prox_block(xj - t * g, t, j, n)
         if keep_mask is not None:
@@ -63,7 +63,7 @@ def bcd_sweep_ref(
             # update below absorbs the change exactly
             mj = lax.dynamic_slice(keep_mask, (col0,), (B,))
             xj_new = jnp.where(mj, xj_new, 0.0)
-        r = r + Aj @ (xj_new - xj)
+        r = r + jnp.dot(Aj, xj_new - xj, precision=lax.Precision.HIGHEST)
         x = lax.dynamic_update_slice(x, xj_new, (col0,))
         return (x, r), None
 

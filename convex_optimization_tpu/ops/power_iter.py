@@ -5,6 +5,8 @@ per-block L_j = ||A_j||_2^2 + lam2 (block-CD steps, SURVEY.md section 3.2's
 per-block Gram/Lipschitz precompute).  Power iteration costs a few dozen
 passes over A at setup; the returned value is inflated by a small safety
 factor so a slightly-unconverged estimate can never break the descent step.
+Every product pins ``Precision.HIGHEST``: a TF32 estimate could undershoot
+the constant the step size relies on.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 from jax import lax
+
+HI = lax.Precision.HIGHEST
 
 
 def spectral_norm_sq(A: jax.Array, *, iters: int = 64, safety: float = 1.02,
@@ -23,12 +27,13 @@ def spectral_norm_sq(A: jax.Array, *, iters: int = 64, safety: float = 1.02,
     v0 = v0 / jnp.linalg.norm(v0)
 
     def body(_, v):
-        w = A.T @ (A @ v)
+        w = jnp.dot(A.T, jnp.dot(A, v, precision=HI), precision=HI)
         return w / jnp.maximum(jnp.linalg.norm(w), 1e-30)
 
     v = lax.fori_loop(0, iters, body, v0)
-    w = A @ v
-    return safety * jnp.vdot(w, w) / jnp.maximum(jnp.vdot(v, v), 1e-30)
+    w = jnp.dot(A, v, precision=HI)
+    return safety * jnp.vdot(w, w, precision=HI) / jnp.maximum(
+        jnp.vdot(v, v, precision=HI), 1e-30)
 
 
 def block_spectral_norms_sq(A: jax.Array, n_blocks: int, *, iters: int = 48,
@@ -52,12 +57,12 @@ def block_spectral_norms_sq(A: jax.Array, n_blocks: int, *, iters: int = 48,
     v0 = v0 / jnp.linalg.norm(v0, axis=1, keepdims=True)
 
     def body(_, v):
-        u = jnp.einsum("mjb,jb->mj", Ab, v)          # A_j v_j for every block
-        w = jnp.einsum("mjb,mj->jb", Ab, u)          # A_j^T u_j
+        u = jnp.einsum("mjb,jb->mj", Ab, v, precision=HI)   # A_j v_j, all j
+        w = jnp.einsum("mjb,mj->jb", Ab, u, precision=HI)   # A_j^T u_j
         return w / jnp.maximum(jnp.linalg.norm(w, axis=1, keepdims=True), 1e-30)
 
     v = lax.fori_loop(0, iters, body, v0)
-    u = jnp.einsum("mjb,jb->mj", Ab, v)
+    u = jnp.einsum("mjb,jb->mj", Ab, v, precision=HI)
     num = jnp.sum(u * u, axis=0)
     den = jnp.maximum(jnp.sum(v * v, axis=1), 1e-30)
     return safety * num / den

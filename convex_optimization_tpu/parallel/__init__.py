@@ -2,7 +2,7 @@
 row (DP-analog) sharding of A, and residual/gradient-consensus collectives
 (psum / ppermute ring) under shard_map.  See SURVEY.md section 2.2/2.3 —
 this subsystem replaces nothing in the reference (which is single-process,
-single-GPU) and is designed TPU-first.
+single-GPU); on the GPU, XLA hands the collectives to NCCL.
 """
 
 from convex_optimization_tpu.parallel import mesh

@@ -1,16 +1,16 @@
 """Collective primitives for the residual-consensus layer (SURVEY.md
 sections 2.2/2.3): the flat psum default plus a ppermute ring all-reduce.
 
-Why a ring: on a TPU slice the ICI fabric is a (twisted) torus — a ring
-reduction moves each chip's m-vector to its neighbor N-1 times, using every
-link every step (full bisection bandwidth), and, crucially, each step is an
-independent XLA op that the latency-hiding scheduler can overlap with
-compute that does not depend on it (the next block chunk's matvec), whereas
-a single fused psum is one blocking op.  This is the ring-attention analog
+Why a ring: a ring reduction moves each device's m-vector to its neighbor
+N-1 times, and each step is an independent XLA op that the latency-hiding
+scheduler can overlap with compute that does not depend on it (the next
+block chunk's matvec), whereas a single fused psum is one blocking op.
+(The four NVLink-joined cards reach each other all to all, so the ring buys
+overlap, not topology.)  This is the ring-attention analog
 named in SURVEY.md section 2.2 for this framework: partial residuals
 circulate around the ring while the sweep continues.
 
-On a 1-chip or CPU mesh the ring degenerates gracefully; equivalence with
+On a 1-device or CPU mesh the ring degenerates gracefully; equivalence with
 psum is tested on the 8-device CPU mesh (tests/test_collectives.py).
 """
 

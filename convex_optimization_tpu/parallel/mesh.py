@@ -2,9 +2,9 @@
 
 Axis convention: a 1-D mesh over axis ``"blocks"`` — feature blocks (columns
 of A) are the primary parallel axis (the TP analog, SURVEY.md section 2.2).
-On a multi-host v5e slice the same flat axis spans ICI intra-host and DCN
-inter-host; residual consensus is one m-vector psum per iteration, cheap on
-either fabric (SURVEY.md section 7.4).
+Across hosts the same flat axis spans NVLink inside a host and the network
+between hosts; residual consensus is one m-vector psum per iteration, cheap
+on either fabric (SURVEY.md section 7.4).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ def make_mesh(n_devices: int | None = None, devices=None,
 
 
 def init_multihost(coordinator_address: str | None = None, **kw) -> None:
-    """Initialize multi-host JAX (v5e-16 style). No-op without an address.
+    """Initialize multi-host JAX. No-op without an address.
 
     NOTE: must run before ANY device query — even jax.process_count()
     initializes the local backend, after which distributed init raises.

@@ -13,7 +13,7 @@ psum, the dual norm via pmax — so the sharded solve is bit-for-tolerance
 equivalent to the unsharded one (tested in tests/test_sharding.py).
 
 The ENTIRE while_loop lives inside one shard_map'd jitted program: no
-per-iteration host dispatch, collectives ride ICI/DCN.
+per-iteration host dispatch; XLA hands the collectives to NCCL.
 """
 
 from __future__ import annotations
@@ -224,28 +224,23 @@ def sharded_bcd(problem: Problem, block_L, state0: SolveState,
     nb_loc = n_blocks // n_shards
     n_loc = problem.n // n_shards
     bs_loc = n_loc // nb_loc
-    def _slab_mode(n_h: int):
-        # per-chip fused sweep: same kernels, run on a column slab inside
-        # shard_map.  'vpu' = transposed VPU kernel (1 HBM read, fastest);
-        # 'resident' = MXU (m, B) block in VMEM; 'tiled' = m-tiled streamed
-        # kernel (config-5-sized slabs).  Explicit per-mode dispatch —
-        # gating on (resident OR tiled) but calling only the resident
-        # kernel silently fell back to the jnp oracle (ADVICE r1).
-        if not cfg.use_pallas:
-            return None
-        from convex_optimization_tpu.ops.bcd_sweep_pallas import eligible
-        from convex_optimization_tpu.ops.bcd_sweep_pallas_tiled import (
-            eligible_tiled,
-        )
-        from convex_optimization_tpu.ops.bcd_sweep_vpu import eligible_vpu
+    gsize = problem.n // pen.ngroups if kind == "group_l2" else 1
 
-        if eligible_vpu(problem.m, n_h, bs_loc):
-            return "vpu"
-        if eligible(problem.m, n_h, bs_loc):
-            return "resident"
-        if eligible_tiled(problem.m, n_h, bs_loc):
-            return "tiled"
-        return None
+    def _fused_slab(n_h: int) -> bool:
+        """True when a slab of n_h columns runs the fused sweep (the same
+        kernel as the single-card solve, on the slab inside shard_map)."""
+        if not cfg.use_pallas:
+            return False
+        from convex_optimization_tpu.ops.route import sweep_gate
+
+        reason = sweep_gate(problem.m, n_h, bs_loc, 1, problem.dtype, gsize)
+        if reason is not None:
+            import warnings
+
+            warnings.warn(f"fused sweep gate failed on a {n_h}-column slab "
+                          f"({reason}); the slab runs the plain sweep",
+                          stacklevel=3)
+        return reason is None
 
     # ring consensus: split the local sweep in two halves and issue the
     # first half's chunked ring reduction BEFORE the second half computes.
@@ -256,6 +251,13 @@ def sharded_bcd(problem: Problem, block_L, state0: SolveState,
     # sequential over blocks either way, and
     #   allreduce(dr) = allreduce(dr_half1) + allreduce(dr_half2).
     split = cfg.consensus == "ring" and nb_loc >= 2
+    # the fused sweep's foreign-function outputs carry no vma, so the VMA
+    # checker rejects them inside shard_map: a program with a fused slab
+    # runs with the checks off, and the sharded == unsharded equivalence
+    # test is the correctness guard
+    fused_slabs = {nb_h: _fused_slab(nb_h * bs_loc)
+                   for nb_h in ({nb_loc // 2, nb_loc - nb_loc // 2}
+                                if split else {nb_loc})}
 
     def local_solve(A_loc, b, lam1, weights_loc, bL_loc, cn_loc,
                     s: SolveState) -> SolveState:
@@ -278,48 +280,26 @@ def sharded_bcd(problem: Problem, block_L, state0: SolveState,
                 pen_h = pen_loc
             prob_h = Problem(A=A_h, b=b, penalty=pen_h, lam2=lam2)
             bL_h = bL_loc[lo:hi]
-            mode = _slab_mode(nb_h * bs_loc)
-            A_t_h = A_blocks_h = None
-            if mode == "vpu":
-                from convex_optimization_tpu.ops.bcd_sweep_vpu import (
+            fused = fused_slabs[nb_h]
+            A_t_h = None
+            if fused:
+                from convex_optimization_tpu.ops.matvec import (
                     to_tblock_major,
                 )
 
                 A_t_h = to_tblock_major(A_h, nb_h)
-            elif mode == "tiled":
-                from convex_optimization_tpu.ops.bcd_sweep_pallas_tiled import (
-                    to_block_major,
-                )
-
-                A_blocks_h = to_block_major(A_h, nb_h)
             order_h = jnp.arange(nb_h, dtype=jnp.int32)
 
             def sweep_h(x_h, r_in, keep_h):
-                if mode == "vpu":
-                    from convex_optimization_tpu.ops.bcd_sweep_vpu import (
-                        bcd_sweep_vpu,
+                if fused:
+                    from convex_optimization_tpu.ops.bcd_sweep import (
+                        bcd_sweep,
                     )
 
-                    return bcd_sweep_vpu(
+                    return bcd_sweep(
                         prob_h, x_h, r_in, bL_h,
                         step_scale=cfg.step_scale, keep_mask=keep_h,
                         A_t=A_t_h)
-                if mode == "resident":
-                    from convex_optimization_tpu.ops.bcd_sweep_pallas import (
-                        bcd_sweep_pallas,
-                    )
-
-                    return bcd_sweep_pallas(
-                        prob_h, x_h, r_in, bL_h,
-                        step_scale=cfg.step_scale, keep_mask=keep_h)
-                if mode == "tiled":
-                    from convex_optimization_tpu.ops.bcd_sweep_pallas_tiled \
-                        import bcd_sweep_pallas_tiled
-
-                    return bcd_sweep_pallas_tiled(
-                        prob_h, x_h, r_in, bL_h,
-                        step_scale=cfg.step_scale, keep_mask=keep_h,
-                        A_blocks=A_blocks_h)
                 return bcd_sweep_ref(
                     prob_h, x_h, r_in, bL_h, order_h,
                     step_scale=cfg.step_scale, keep_mask=keep_h)
@@ -414,22 +394,13 @@ def sharded_bcd(problem: Problem, block_L, state0: SolveState,
             return s
         return lax.while_loop(cond, body, s)
 
-    # pallas_call out_shapes carry no vma, so the VMA checker rejects ANY
-    # kernel inside shard_map (latent until round 5: every CPU-mesh test
-    # happened to route to the jnp oracle).  When a slab will run a fused
-    # kernel, disable the checks; the sharded == unsharded equivalence
-    # test remains the correctness guard.
-    any_kernel_slab = any(
-        _slab_mode(nb_h * bs_loc) is not None
-        for nb_h in ({nb_loc // 2, nb_loc - nb_loc // 2}
-                     if split else {nb_loc}))
     sspec = _state_specs()
     f = jax.shard_map(
         local_solve, mesh=mesh,
         in_specs=(P(None, BLOCKS), P(), P(), w_spec, P(BLOCKS), P(BLOCKS), sspec),
         out_specs=sspec,
         check_vma=(cfg.consensus == "psum"  # see sharded_fista note
-                   and not any_kernel_slab),
+                   and not any(fused_slabs.values())),
     )
     args = check_lam1_slot((problem.A, problem.b, pen.lam1, weights,
                             block_L, col_norms, state0), pen)
@@ -473,7 +444,7 @@ def _solve_grid_sharded(problem: Problem, method: str,
 
     if method in ("bcd", "bcd_pallas"):
         # grid GS sweep is plain-XLA (per-block ROWS psums preclude the
-        # fused single-chip kernel); bcd_pallas accepted, same program
+        # fused single-card sweep); bcd_pallas accepted, same program
         from convex_optimization_tpu.ops.power_iter import (
             block_spectral_norms_sq,
         )
@@ -492,7 +463,7 @@ def _solve_grid_sharded(problem: Problem, method: str,
         L_total = spectral_norm_sq(problem.A) + problem.lam2
         jfn, args = grid_sharded_fista(problem, L_total, make_state(x0), cfg,
                                        mesh)
-    final, wall, compile_s = _timed_run(jfn, args, make_state, x0)
+    final, wall, compile_s = _timed_run(jfn, args)
     iters = int(final.k)
     return Result(
         x=final.x_best, gap=float(final.best_gap),
@@ -557,7 +528,7 @@ def _solve_row_sharded(problem: Problem, method: str,
         L_total = spectral_norm_sq(problem.A) + problem.lam2
         jfn, args = sharded_fista_rows(problem, L_total, make_state(x0), cfg,
                                        mesh)
-    final, wall, compile_s = _timed_run(jfn, args, make_state, x0)
+    final, wall, compile_s = _timed_run(jfn, args)
     iters = int(final.k)
     return Result(
         x=final.x_best, gap=float(final.best_gap),
@@ -571,39 +542,14 @@ def _solve_row_sharded(problem: Problem, method: str,
     )
 
 
-def _timed_run(jfn, args, make_state, x0):
-    """Warm traced call (compile + run, untimed) then a timed traced call
-    from a minutely perturbed equivalent start.  See api.solve for the
-    relay-calibrated rationale (AOT executions don't block; identical
-    inputs can be memoized).  args[-1] must be the initial state."""
-    from convex_optimization_tpu.api import _perturb_start
-
+def _timed_run(jfn, args):
+    """Compile ahead of time (set-up), then one execution ended by
+    block_until_ready.  Returns (final state, wall s, compile s)."""
     t0 = time.perf_counter()
-    final = jfn(*args)
-    int(final.k)  # value fetch: the only reliable completion barrier here
+    compiled = jfn.lower(*args).compile()
     t1 = time.perf_counter()
-    # timed run from a minutely perturbed start — used ONLY for the wall
-    # clock; the returned result is the unperturbed first run (the nudge
-    # must never leak into the solution).  The perturb helper needs
-    # n/dtype; reconstruct from the state's x leaf.
-    x_t = _perturb_start(x0, _ProblemLike(args[-1].x))
-    state_t = make_state(x_t)
-    jax.block_until_ready(state_t.x)
-    t2 = time.perf_counter()
-    timed = jfn(*args[:-1], state_t)
-    # value fetch INSIDE the timed window (see api.solve)
-    int(timed.k)
-    t3 = time.perf_counter()
-    wall = t3 - t2
-    return final, wall, max(t1 - t0 - wall, 0.0)
-
-
-class _ProblemLike:
-    """Adapter giving _perturb_start the (n, dtype) it needs."""
-
-    def __init__(self, x_leaf):
-        self.n = x_leaf.shape[0]
-        self.dtype = x_leaf.dtype
+    final = jax.block_until_ready(compiled(*args))
+    return final, time.perf_counter() - t1, t1 - t0
 
 
 def solve_sharded(problem: Problem, method: str, mesh: jax.sharding.Mesh,
@@ -667,7 +613,7 @@ def solve_sharded(problem: Problem, method: str, mesh: jax.sharding.Mesh,
     else:
         raise ValueError(f"unknown sharded method {method!r}")
 
-    final, wall, compile_s = _timed_run(jfn, args, make_state, x0)
+    final, wall, compile_s = _timed_run(jfn, args)
     iters = int(final.k)
     return Result(
         x=final.x_best, gap=float(final.best_gap),

@@ -8,9 +8,9 @@ Problem split:  min 0.5||Ax-b||^2 + (lam2/2)||x||^2 + g(z)  s.t. x = z.
     z+ = prox_{g/rho}(x+ + u)
     u+ = u + x+ - z+
 
-TPU-first design decisions:
+Design decisions:
   * The x-update is EXACT via one eigendecomposition of the small-side Gram
-    matrix, done once at setup (MXU-friendly dense eigh).  With
+    matrix, done once at setup (one dense eigh).  With
     G = V diag(s) V^T, the inverse for ANY shift c is V diag(1/(s+c)) V^T —
     so residual-balancing adaptive rho (He-Yang-Wang / adaptive consensus
     ADMM) costs nothing inside jit: no refactorization, just a new

@@ -1,6 +1,6 @@
 """Gap-safe active-set screening (SURVEY.md C11), expressed as jittable masks.
 
-TPU constraint: no dynamic shapes inside jit, so screening never gathers —
+XLA constraint: no dynamic shapes inside jit, so screening never gathers —
 it produces a boolean keep-mask consumed by the solvers (screened coordinates
 are provably zero at the current lam1 and stay frozen).  Compaction (actually
 shrinking the problem) happens only at lambda-path boundaries on the host,

@@ -2,8 +2,8 @@
 
 The reference logs with prints and matplotlib; here every solve emits a
 structured per-check record stream that can be written as JSONL and
-summarized, and the bandwidth meter scores the hot loop against the chip's
-HBM speed of light (the [B:5] per-chip target needs exactly this meter).
+summarized, and the bandwidth meter scores the hot loop against the card's
+published memory bandwidth.
 """
 
 from __future__ import annotations
@@ -14,21 +14,27 @@ import time
 from dataclasses import asdict, dataclass
 from typing import IO, Iterable, Optional
 
-# Peak HBM bandwidth per chip, bytes/s.  v5e ~= 819 GB/s; override for other
-# chips via set_hbm_peak or the CO_TPU_HBM_PEAK_GBS env var.
-_HBM_PEAK_BYTES_S = 819e9
+#: Published peak device-memory bandwidth, bytes/s, keyed by JAX's
+#: ``device_kind``.  Source: NVIDIA H100 Tensor Core GPU data sheet (H100
+#: SXM: 3.35 TB/s).  A device not in the table is an error, not a default.
+HBM_PEAK_BYTES_S = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,
+}
 
 
-def set_hbm_peak(gb_s: float) -> None:
-    global _HBM_PEAK_BYTES_S
-    _HBM_PEAK_BYTES_S = gb_s * 1e9
+def hbm_peak_bytes_s(device_kind: str | None = None) -> float:
+    """Peak memory bandwidth of ``device_kind`` (default: the first
+    device's); raises KeyError for a device the table does not list."""
+    if device_kind is None:
+        import jax
 
-
-def hbm_peak_bytes_s() -> float:
-    import os
-
-    env = os.environ.get("CO_TPU_HBM_PEAK_GBS")
-    return float(env) * 1e9 if env else _HBM_PEAK_BYTES_S
+        device_kind = jax.devices()[0].device_kind
+    try:
+        return HBM_PEAK_BYTES_S[device_kind]
+    except KeyError:
+        raise KeyError(f"no published memory bandwidth for device "
+                       f"{device_kind!r} (utils/metrics.HBM_PEAK_BYTES_S)"
+                       ) from None
 
 
 @dataclass
@@ -77,18 +83,21 @@ def write_jsonl(records: Iterable[SweepRecord], fp: IO[str],
 
 def effective_bandwidth(m: int, n: int, iterations: int, wall_time_s: float,
                         *, passes_per_iter: float = 2.0,
-                        itemsize: int = 4) -> dict:
-    """Achieved bytes/s streaming A, and the fraction of HBM speed of light.
+                        itemsize: int = 4,
+                        device_kind: str | None = None) -> dict:
+    """Achieved bytes/s streaming A, and its fraction of the device's
+    published peak (:func:`hbm_peak_bytes_s`).
 
     FISTA does 2 full passes over A per iteration (solvers/fista.py); the
-    fused Pallas BCD sweep does 1 (ops/bcd_sweep_pallas.py).
+    fused BCD sweep does 1 (ops/bcd_sweep.py).
     """
     bytes_moved = passes_per_iter * m * n * itemsize * iterations
     bps = bytes_moved / wall_time_s if wall_time_s > 0 else float("inf")
+    peak = hbm_peak_bytes_s(device_kind)
     return {
         "achieved_gb_s": bps / 1e9,
-        "hbm_peak_gb_s": hbm_peak_bytes_s() / 1e9,
-        "fraction_of_peak": bps / hbm_peak_bytes_s(),
+        "hbm_peak_gb_s": peak / 1e9,
+        "fraction_of_peak": bps / peak,
     }
 
 

@@ -3,13 +3,16 @@ and run model selection.  Runs anywhere (CPU included):
 
     JAX_PLATFORMS=cpu python examples/quickstart.py
 
-On a TPU host just drop the env var.  See README.md for the full API and
+On a GPU host drop the env var.  See README.md for the full API and
 docs/DESIGN.md for why the solvers look the way they do.
 """
 
 import os
+import sys
 
-os.environ.setdefault("JAX_PLATFORMS", os.environ.get("JAX_PLATFORMS", ""))
+# run from a checkout without installing the package: the script's own
+# directory is sys.path[0], so put the repository root beside it
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import numpy as np

@@ -1,7 +1,7 @@
-"""Batched-lambda kernels and path solver (round 4): each lambda slice of
-the batched programs must match the proven single-lambda kernels exactly
-(same arithmetic, same chunking), and the batched path must reproduce the
-sequential warm-started path's solutions point-for-point."""
+"""Batched-lambda sweep and path solver: each lambda slice of the batched
+programs must match the single-lambda sweep, and the batched path must
+reproduce the sequential warm-started path's solutions point-for-point.
+On the CPU the sweep runs the plain route (ops/route.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -10,21 +10,20 @@ import pytest
 
 from convex_optimization_tpu.core.datagen import make_lasso_instance
 from convex_optimization_tpu.solvers.common import SolverConfig
-from convex_optimization_tpu.ops.bcd_sweep_vpu import (
-    bcd_sweep_vpu,
-    to_tblock_major,
-)
-from convex_optimization_tpu.ops.bcd_sweep_vpu_batch import (
+from convex_optimization_tpu.ops.bcd_sweep import batch_sweep, bcd_sweep
+from convex_optimization_tpu.ops.matvec import (
     ax_minus_b_batch_t,
-    batch_sweep_vpu,
-    eligible_vpu_batch,
-    neg_at_r_batch_t,
-)
-from convex_optimization_tpu.ops.matvec_pallas import (
     ax_minus_b_t,
     block_power_t,
+    neg_at_r_batch_t,
     neg_at_r_t,
+    to_tblock_major,
 )
+from convex_optimization_tpu.ops.route import sweep_gate
+
+
+def eligible_batch(m, n, block, L, dtype=jnp.float32):
+    return sweep_gate(m, n, block, L, dtype) is None
 
 KEY = jax.random.PRNGKey(77)
 
@@ -35,7 +34,7 @@ def _setup(kind="l1", ngroups=0, m=64, n=256, B=32, lam2=0.0):
     p = inst.problem
     nb = n // B
     A_t = to_tblock_major(p.A, nb)
-    block_L = block_power_t(A_t, interpret=True)
+    block_L = block_power_t(A_t)
     steps = (1.0 / (block_L + p.lam2)).astype(p.dtype)
     return p, A_t, steps
 
@@ -62,16 +61,16 @@ def test_batched_sweep_matches_single_per_lambda(kind, ngroups, lam2):
     R = jnp.stack([
         p.A @ X[:, l, :].reshape(p.n) - p.b for l in range(L)])
 
-    Xb, Rb = batch_sweep_vpu(A_t, X, R, steps, lam1s, p.lam2, kind=kind,
-                             gsize=gsize, weights=w, interpret=True)
+    Xb, Rb = batch_sweep(A_t, X, R, steps, lam1s, p.lam2, kind=kind,
+                             gsize=gsize, weights=w)
     for l in range(L):
         pl_ = jax.tree_util.tree_map(lambda v: v, p)
         import dataclasses
         pl_ = dataclasses.replace(
             p, penalty=p.penalty.with_lam1(lam1s[l]))
         block_L = (1.0 / steps) - p.lam2
-        x1, r1 = bcd_sweep_vpu(pl_, X[:, l, :].reshape(p.n), R[l],
-                               block_L, interpret=True, A_t=A_t)
+        x1, r1 = bcd_sweep(pl_, X[:, l, :].reshape(p.n), R[l],
+                               block_L, A_t=A_t)
         np.testing.assert_allclose(
             np.asarray(Xb[:, l, :].reshape(p.n)), np.asarray(x1),
             atol=1e-6, err_msg=f"lambda slice {l} (x)")
@@ -89,12 +88,12 @@ def test_batched_matvecs_match_single_per_lambda():
     R = jnp.asarray(rng.standard_normal((L, m)), p.dtype)
     lam2 = 0.37
 
-    Rb = ax_minus_b_batch_t(A_t, X, p.b, interpret=True)
-    Zb = neg_at_r_batch_t(A_t, R, X, lam2, interpret=True)
+    Rb = ax_minus_b_batch_t(A_t, X, p.b)
+    Zb = neg_at_r_batch_t(A_t, R, X, lam2)
     for l in range(L):
         x_l = X[:, l, :].reshape(p.n)
-        r1 = ax_minus_b_t(A_t, x_l, p.b, interpret=True)
-        z1 = neg_at_r_t(A_t, R[l], x_l, lam2, interpret=True)
+        r1 = ax_minus_b_t(A_t, x_l, p.b)
+        z1 = neg_at_r_t(A_t, R[l], x_l, lam2)
         np.testing.assert_allclose(np.asarray(Rb[l]), np.asarray(r1),
                                    atol=1e-5)
         np.testing.assert_allclose(
@@ -103,13 +102,12 @@ def test_batched_matvecs_match_single_per_lambda():
 
 
 def test_eligibility_gate():
-    assert eligible_vpu_batch(64, 256, 32, 3)
-    assert not eligible_vpu_batch(64, 256, 32, 0)
-    assert not eligible_vpu_batch(64, 256, 32, 99)     # L > MAX_BATCH
-    assert not eligible_vpu_batch(64, 250, 32, 3)      # n % B
-    assert not eligible_vpu_batch(64, 256, 32, 3, jnp.float64)
-    # the masked variant charges the resident row mask to VMEM
-    assert eligible_vpu_batch(64, 256, 32, 3, masked=True)
+    assert eligible_batch(64, 256, 32, 3)
+    assert not eligible_batch(64, 256, 32, 0)
+    assert not eligible_batch(64, 256, 32, 99)     # L > MAX_BATCH
+    assert not eligible_batch(64, 250, 32, 3)      # n % B
+    assert not eligible_batch(64, 256, 32, 3, jnp.float64)
+    assert not eligible_batch(60, 256, 32, 3)      # m % 8
 
 
 def test_masked_batch_sweep_is_bit_exact_vs_masked_copy():
@@ -128,11 +126,11 @@ def test_masked_batch_sweep_is_bit_exact_vs_masked_copy():
     R = jnp.stack([rm * (p.A @ X[:, l, :].reshape(p.n) - p.b)
                    for l in range(L)])
 
-    X1, R1 = batch_sweep_vpu(A_t, X, R, steps, lam1s, p.lam2, kind="l1",
-                             row_mask=rm, interpret=True)
+    X1, R1 = batch_sweep(A_t, X, R, steps, lam1s, p.lam2, kind="l1",
+                             row_mask=rm)
     A_t_masked = to_tblock_major(p.A * rm[:, None], nb)
-    X2, R2 = batch_sweep_vpu(A_t_masked, X, R, steps, lam1s, p.lam2,
-                             kind="l1", interpret=True)
+    X2, R2 = batch_sweep(A_t_masked, X, R, steps, lam1s, p.lam2,
+                             kind="l1")
     np.testing.assert_array_equal(np.asarray(X1), np.asarray(X2))
     np.testing.assert_array_equal(np.asarray(R1), np.asarray(R2))
     # masked rows of R stay EXACTLY zero (the invariant persists)
@@ -241,7 +239,9 @@ def test_batched_path_fallback_on_ineligible():
     cfg = SolverConfig(tol=1e-8, max_iters=2000)
     with pytest.warns(UserWarning, match="bcd_batch gate failed"):
         res = batched_lambda_path(inst.problem, cfg, path_len=4)
-    assert res.method_used == "bcd_pallas"
+    # the sequential bcd_pallas path refuses f64 too, loudly, and runs
+    # plain bcd; method_used names what ran
+    assert res.method_used == "bcd"
     assert res.xs.shape == (4, 256)
     assert np.all(np.asarray(res.gaps) <= 1e-7)
     assert np.all(np.asarray(res.converged))
@@ -405,33 +405,3 @@ def test_path_result_records_method_and_convergence():
         assert res.method_used == expect, method
         assert res.converged is not None and res.converged.shape == (3,)
         assert np.all(np.asarray(res.converged)), method
-
-
-def test_budgeted_slices_match_single_execution(monkeypatch):
-    """The bounded-execution driver (EXEC_SWEEP_BUDGET slices around the
-    carried _BatchState) must produce the same path as one big execution
-    — slicing exists because minutes-long single executions kill the TPU
-    worker (r5), and must never change results."""
-    import convex_optimization_tpu.solvers.batched_path as bp
-    from convex_optimization_tpu.core.datagen import make_lasso_instance
-
-    inst = make_lasso_instance(jax.random.PRNGKey(9), 64, 256)
-    cfg = SolverConfig(tol=1e-5, max_iters=3000, gap_every=10,
-                       stall_checks=15)
-    ref = bp.batched_lambda_path(inst.problem, cfg, path_len=4)
-
-    monkeypatch.setattr(bp, "EXEC_SWEEP_BUDGET", 20)   # force many slices
-    sliced = bp.batched_lambda_path(inst.problem, cfg, path_len=4)
-    np.testing.assert_array_equal(np.asarray(ref.xs), np.asarray(sliced.xs))
-    np.testing.assert_array_equal(np.asarray(ref.gaps),
-                                  np.asarray(sliced.gaps))
-
-    # masked variant through the same driver
-    rm = jnp.asarray((np.random.default_rng(2).random(64) > 0.3)
-                     .astype(np.float32))
-    ref_m = bp.batched_lambda_path(inst.problem, cfg, path_len=4,
-                                   row_mask=rm)
-    monkeypatch.setattr(bp, "EXEC_SWEEP_BUDGET", 1500)
-    one_m = bp.batched_lambda_path(inst.problem, cfg, path_len=4,
-                                   row_mask=rm)
-    np.testing.assert_array_equal(np.asarray(ref_m.xs), np.asarray(one_m.xs))

@@ -54,7 +54,7 @@ def test_sharded_solvers_with_ring_consensus(mesh8):
     XLA:CPU SIGABRTs on collective-permute inside a while_loop body, so
     this runs the ring path with ``unroll_checks=True`` (static unrolled
     check loop, solvers/common.py) — same program arithmetic, no while
-    thunk.  On TPU the normal while_loop path is used.  The BCD ring run
+    thunk.  On the GPU the normal while_loop path is used.  The BCD ring run
     also exercises the SPLIT sweep (consensus of the first half-slab
     issued while the second half computes — the overlap path)."""
     inst = make_lasso_instance(jax.random.PRNGKey(11), 64, 256)

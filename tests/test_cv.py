@@ -152,7 +152,7 @@ def test_cv_kernel_route_traces_no_full_size_A_program():
     p = inst.problem
     cfg = SolverConfig(tol=1e-5, max_iters=2000, gap_every=10,
                        stall_checks=15)
-    prep = prepare_batched_solver(p, cfg, masked=True)
+    prep = prepare_batched_solver(p, cfg)
     assert prep.reason is None
     rm = jnp.asarray(kfold_train_masks(p.m, 3, seed=0)[0])
     lmax = float(jnp.max(jnp.abs(p.A.T @ (p.b * rm))))
@@ -165,8 +165,7 @@ def test_cv_kernel_route_traces_no_full_size_A_program():
     assert pr.method_used == "bcd_batch"
     assert np.all(np.isfinite(np.asarray(pr.xs)))
     Xc = pr.xs.reshape(4, prep.n_blocks, prep.B).transpose(1, 0, 2)
-    v = _val_mse_kernel(prep.A_t, Xc, p.b, 1.0 - rm,
-                        interpret=prep.interpret)
+    v = _val_mse_kernel(prep.A_t, Xc, p.b, 1.0 - rm)
     assert np.all(np.isfinite(np.asarray(v)))
 
 
@@ -182,11 +181,10 @@ def test_cv_no_refit_and_explicit_grid():
 
 
 def test_lambda_max_t_matches_xla_dot():
-    """Kernel-routed λ_max (streamed witness over A_t) == the XLA-dot
-    lambda_max for all three penalty families — the CV grid no longer
-    needs a full-size dot program when A_t is hoisted."""
+    """λ_max on A_t (one witness product) == lambda_max on A for all three
+    penalty families — the CV grid needs no A once A_t is hoisted."""
     from convex_optimization_tpu.core.objective import lambda_max, lambda_max_t
-    from convex_optimization_tpu.ops.bcd_sweep_vpu import to_tblock_major
+    from convex_optimization_tpu.ops.matvec import to_tblock_major
 
     for kind, ngroups in [("l1", 0), ("nonneg_l1", 0), ("group_l2", 16)]:
         inst = make_lasso_instance(jax.random.PRNGKey(3), 64, 256,
@@ -194,7 +192,7 @@ def test_lambda_max_t_matches_xla_dot():
         p = inst.problem
         A_t = to_tblock_major(p.A, 256 // 32)
         ref = float(lambda_max(p.A, p.b, p.penalty))
-        got = float(lambda_max_t(A_t, p.b, p.penalty, interpret=True))
+        got = float(lambda_max_t(A_t, p.b, p.penalty))
         np.testing.assert_allclose(got, ref, rtol=2e-6)
 
 

@@ -19,7 +19,7 @@ from convex_optimization_tpu.solvers.polish import polish
 def test_polish_certifies_below_f32_floor(kind, ngroups, lam2):
     inst = make_lasso_instance(jax.random.PRNGKey(1), 96, 256,
                                penalty_kind=kind, ngroups=ngroups, lam2=lam2)
-    # stop the f32 solve early (coarse point, like a TPU plateau)
+    # stop the f32 solve early (a coarse point, like an f32 plateau)
     res = solve(inst.problem, "fista", tol=1e-4, max_iters=3000)
     pr = polish(inst.problem, res.x, tol=1e-8)
     assert pr.rel_gap <= 1e-8, pr.rel_gap
@@ -229,8 +229,7 @@ def test_cd64_group_direct_with_compaction():
                                        ("nonneg_l1", 0.0),
                                        ("nonneg_l1", 1e-2)])
 def test_cd64_native_matches_python_path(monkeypatch, kind, lam2):
-    """The native C sweep (round 3: GIL-released, immune to the relay
-    client's background-thread starvation) must produce the same certified
+    """The native C sweep (GIL-released) must produce the same certified
     result as the pure-NumPy loop — across the soft-threshold/nonneg prox
     branches and the lam2 gradient term."""
     import numpy as np

@@ -64,8 +64,10 @@ def test_records_and_jsonl(tmp_path):
 
 
 def test_effective_bandwidth_math():
-    bw = M.effective_bandwidth(1000, 1000, iterations=100, wall_time_s=1.0)
+    bw = M.effective_bandwidth(1000, 1000, iterations=100, wall_time_s=1.0,
+                               device_kind="NVIDIA H100 80GB HBM3")
     assert np.isclose(bw["achieved_gb_s"], 2 * 4 * 1e6 * 100 / 1e9)
+    assert np.isclose(bw["hbm_peak_gb_s"], 3350.0)
     assert 0 < bw["fraction_of_peak"] < 1
 
 
